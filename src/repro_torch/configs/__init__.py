@@ -1,0 +1,2 @@
+from repro_torch.configs.base import (ArchConfig, get_config,  # noqa: F401
+                                      reduced, register)

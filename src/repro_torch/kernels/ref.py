@@ -1,0 +1,69 @@
+"""Plain PyTorch versions of the port's kernels.
+
+They are what the kernels compute, written with tensor operations: the
+CPU path runs them, the tests hold them against the reference, and
+``chip_smoke.py`` holds each CUDA kernel against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def mlstm_chunk_step(q, k, v, li, lf, state):
+    """One chunk of the chunkwise-parallel mLSTM (the reference's
+    ``models/ssm.py::_mlstm_chunk``).
+
+    q/k/v: (B, H, L, dh) f32; li/lf: (B, H, L) log input-gate preactivation
+    and log-sigmoid forget gate; state: (C (B,H,dh,dh), n (B,H,dh), m (B,H)),
+    m may be -inf.  Returns (h (B,H,L,dh), new state).
+    """
+    C_in, n_in, m_in = state
+    L, dh = q.shape[-2], q.shape[-1]
+    b = torch.cumsum(lf, dim=-1)                          # (B,H,L) inclusive
+    # intra-chunk log scores: g[t,s] = b_t - b_s + li_s  for s <= t
+    g = b[..., :, None] - b[..., None, :] + li[..., None, :]
+    tri = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    g = g.masked_fill(~tri, float("-inf"))
+    m_intra = g.amax(dim=-1)                              # (B,H,L)
+    m_t = torch.maximum(m_in[..., None] + b, m_intra)     # (B,H,L)
+    s = torch.exp(g - m_t[..., None])                     # (B,H,L,L)
+    scale = dh ** -0.5
+    w = (q @ k.transpose(-1, -2)) * scale * s
+    inter = torch.exp(m_in[..., None] + b - m_t)          # (B,H,L)
+    qi = q * inter[..., None] * scale
+    num = w @ v + qi @ C_in
+    den = w.sum(dim=-1) + (qi @ n_in[..., None])[..., 0]
+    h = num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
+    # state update
+    bL = b[..., -1]                                       # (B,H)
+    dec = bL[..., None] - b + li                          # (B,H,L)
+    m_out = torch.maximum(m_in + bL, dec.amax(dim=-1))
+    carry = torch.exp(m_in + bL - m_out)
+    kv = k * torch.exp(dec - m_out[..., None])[..., None]  # (B,H,L,dh)
+    C_out = C_in * carry[..., None, None] + kv.transpose(-1, -2) @ v
+    n_out = n_in * carry[..., None] + kv.sum(dim=-2)
+    return h, (C_out, n_out, m_out)
+
+
+def chunk_len(S: int, chunk: int) -> int:
+    """The chunk length both versions use: min(chunk, S), or S when S is
+    not a multiple of it."""
+    L = min(chunk, S)
+    return S if S % L else L
+
+
+def mlstm_chunk_ref(q, k, v, li, lf, state, chunk: int = 256):
+    """The chunk loop of the reference's ``mlstm_forward`` (a ``lax.scan``
+    over ``_mlstm_chunk``), with the carried state as input.
+
+    q/k/v: (B, H, S, dh); li/lf: (B, H, S).  Returns (h (B,H,S,dh) f32,
+    final (C, n, m))."""
+    S = q.shape[2]
+    L = chunk_len(S, chunk)
+    hs = []
+    for c0 in range(0, S, L):
+        sl = slice(c0, c0 + L)
+        h, state = mlstm_chunk_step(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                    li[:, :, sl], lf[:, :, sl], state)
+        hs.append(h)
+    return torch.cat(hs, dim=2), state

@@ -1,0 +1,77 @@
+"""Serving launcher: randomly initialise a model from a seed and serve a
+batch of synthetic requests through the engine, reporting tokens/sec, p95
+TTFT and the mLSTM kernel's launch count.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
+        --reduced --device cpu
+
+Not ported yet (ROADMAP.md): ``--ckpt``, ``--cache-mode`` (the paged and
+dense modes), ``--policy`` (it plans those modes' chunk ticks) and the
+multi-rank drain.
+"""
+import argparse
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--max-len", type=int, default=512)
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="mean request arrivals/sec (0 = all at once)")
+    ap.add_argument("--max-steps", type=int, default=10_000)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.kernels.ops import MLSTM_CHUNK
+    from repro_torch.serve import Engine, Request
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    engine = Engine(cfg, slots=args.slots, max_len=args.max_len,
+                    seed=args.seed, device=args.device)
+    engine.load(engine.model.init(args.seed))
+
+    rng = np.random.default_rng(args.seed)
+    reqs = [Request(rid=i,
+                    prompt=rng.integers(0, cfg.vocab_size,
+                                        size=int(rng.integers(8, 64))),
+                    max_new_tokens=args.new_tokens)
+            for i in range(args.requests)]
+    if args.rate > 0:
+        gaps = rng.exponential(1.0 / args.rate, size=args.requests)
+        arrivals = [float(t) for t in np.cumsum(gaps)]
+    else:
+        arrivals = [0.0] * args.requests
+    results = engine.run_trace(reqs, arrivals, max_steps=args.max_steps)
+
+    done_tokens = sum(len(v) for v in results.values())
+    ttfts = sorted(m["ttft_s"] for m in results.metrics.values()
+                   if m.get("ttft_s") is not None)
+    elapsed = max((m.get("done_s", 0.0)
+                   for m in results.metrics.values()), default=0.0)
+    print(f"[serve] mode={engine.cache_mode} device={engine.device} "
+          f"completed {len(results)}/{args.requests} requests, "
+          f"{done_tokens} tokens")
+    if ttfts and elapsed > 0:
+        p95 = ttfts[min(len(ttfts) - 1, int(0.95 * len(ttfts)))]
+        print(f"[serve] {done_tokens / elapsed:.0f} tok/s, "
+              f"p95 TTFT {p95 * 1e3:.1f} ms")
+    print(f"[serve] mlstm_chunk kernel launches: {MLSTM_CHUNK.launches}")
+    if results.truncated:
+        raise SystemExit(
+            f"[serve] TRUNCATED at --max-steps={args.max_steps}: "
+            f"unfinished requests {sorted(results.unfinished)}")
+
+
+if __name__ == "__main__":
+    main()
