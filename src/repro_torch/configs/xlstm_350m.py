@@ -10,6 +10,8 @@ CONFIG = register(ArchConfig(
     num_layers=24,
     d_model=1024,
     num_heads=4,
+    num_kv_heads=4,
+    d_ff=0,
     head_dim=256,
     vocab_size=50304,
     xlstm_pattern=(MLSTM, SLSTM),

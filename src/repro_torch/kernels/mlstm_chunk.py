@@ -4,8 +4,8 @@ Replaces the Pallas TPU kernel ``repro/kernels/mlstm_chunk.py::mlstm_chunk``
 and adds the carried (C, n, m) state input that serving needs.  The source
 is ``csrc/mlstm_chunk.cu``; its header states the layout and the bound.
 It is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
-plain C interface at first use (into ``build/`` beside this file, keyed by
-the source's hash) and called through ``ctypes``.
+plain C interface at first use (``build.build_library``) and called
+through ``ctypes``.
 
 The plain version of the same function is ``ref.mlstm_chunk_ref``.
 ``ops.mlstm_chunk`` sends CPU tensors there; this wrapper takes CUDA
@@ -15,45 +15,13 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import hashlib
-import os
-import subprocess
-from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.build import CSRC, build_library
 from repro_torch.kernels.ref import chunk_len
 
-_HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "mlstm_chunk.cu"
-BUILD_DIR = _HERE / "build"
-ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def build_library():
-    """Compile the kernel unless a library of the same source hash exists.
-    Returns (path of the library, compiler output or '' when cached)."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{SOURCE.stem}-{tag}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
-           "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"building {SOURCE.name} failed:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)          # atomic: concurrent builds agree
-    return lib, proc.stdout + proc.stderr
+SOURCE = CSRC / "mlstm_chunk.cu"
 
 
 class MlstmChunkKernel:
@@ -74,7 +42,7 @@ class MlstmChunkKernel:
 
     def load(self):
         if self._lib is None:
-            path, self.build_log = build_library()
+            path, self.build_log = build_library(SOURCE)
             lib = ctypes.CDLL(str(path))
             lib.mlstm_chunk_fwd.argtypes = (
                 [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4

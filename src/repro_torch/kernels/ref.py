@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.base import GLOBAL_WINDOW
+
 
 def mlstm_chunk_step(q, k, v, li, lf, state):
     """One chunk of the chunkwise-parallel mLSTM (the reference's
@@ -67,3 +69,47 @@ def mlstm_chunk_ref(q, k, v, li, lf, state, chunk: int = 256):
                                     li[:, :, sl], lf[:, :, sl], state)
         hs.append(h)
     return torch.cat(hs, dim=2), state
+
+
+def _attn_chunk(q, k, v, q_pos, k_pos, *, window: int, causal: bool,
+                scale: float):
+    """Exact attention for one query chunk (the reference's
+    ``models/layers.py::_attn_chunk``): f32 logits, masked logits -1e30,
+    f32 softmax, probabilities cast to v's dtype for the product with v."""
+    B, Tq, Hq, dh = q.shape
+    Hkv = k.shape[2]
+    g = Hq // Hkv
+    qg = q.reshape(B, Tq, Hkv, g, dh)
+    logits = torch.einsum("bqhgd,bshd->bhgqs", qg.float(), k.float()) * scale
+    valid = (k_pos >= 0)[:, None, :]                              # (B,1,Tk)
+    if causal:
+        rel = q_pos[:, :, None] - k_pos[:, None, :]               # (B,Tq,Tk)
+        mask = valid & (rel >= 0) & (rel < window)
+    else:
+        mask = valid.expand(B, Tq, k.shape[1])
+    logits = logits.masked_fill(~mask[:, None, None], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqs,bshd->bqhgd", probs.to(v.dtype), v)
+    return out.reshape(B, Tq, Hq, dh)
+
+
+def attention_ref(q, k, v, q_pos, k_pos, *, window: int = GLOBAL_WINDOW,
+                  causal: bool = True, q_chunk: int = 0):
+    """Masked GQA attention over explicit positions (the reference's
+    ``models/layers.py::attention``).
+
+    q: (B, Tq, Hq, dh); k/v: (B, Tk, Hkv, dh) with Hq % Hkv == 0;
+    q_pos: (B, Tq), k_pos: (B, Tk) int, -1 marking an empty slot.  A key
+    is live for a query when k_pos >= 0 and, if ``causal``,
+    0 <= q_pos - k_pos < window (GLOBAL_WINDOW: unbounded).  ``q_chunk``
+    splits the queries into chunks when it divides Tq (same result,
+    O(q_chunk * Tk) logits).  Returns (B, Tq, Hq, dh) in v's dtype."""
+    B, Tq, Hq, dh = q.shape
+    scale = dh ** -0.5
+    kw = dict(window=window, causal=causal, scale=scale)
+    if q_chunk and Tq > q_chunk and Tq % q_chunk == 0:
+        return torch.cat([
+            _attn_chunk(q[:, c0:c0 + q_chunk], k, v,
+                        q_pos[:, c0:c0 + q_chunk], k_pos, **kw)
+            for c0 in range(0, Tq, q_chunk)], dim=1)
+    return _attn_chunk(q, k, v, q_pos, k_pos, **kw)

@@ -1,14 +1,14 @@
 """Serving launcher: randomly initialise a model from a seed and serve a
 batch of synthetic requests through the engine, reporting tokens/sec, p95
-TTFT and the mLSTM kernel's launch count.
+TTFT and the launch counts of the attention and mLSTM kernels.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
+        --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
         --reduced --device cpu
 
-Not ported yet (ROADMAP.md): ``--ckpt``, ``--cache-mode`` (the paged and
-dense modes), ``--policy`` (it plans those modes' chunk ticks) and the
-multi-rank drain.
+Not ported yet (ROADMAP.md): ``--ckpt`` and the multi-rank drain.
 """
 import argparse
 
@@ -21,6 +21,19 @@ def main(argv=None) -> None:
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--cache-mode", default="auto",
+                    choices=["auto", "paged", "dense", "legacy"],
+                    help="paged = block-pool KV cache (default on "
+                         "attention-only archs)")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="tokens per KV block (paged mode)")
+    ap.add_argument("--num-blocks", type=int, default=0,
+                    help="pool size in blocks (0 = dense-equivalent)")
+    ap.add_argument("--policy", default="conservative",
+                    choices=["conservative", "mixed"],
+                    help="tick policy: conservative keeps greedy decode "
+                         "bit-stable; mixed packs decode into prefill "
+                         "dispatches")
     ap.add_argument("--rate", type=float, default=0.0,
                     help="mean request arrivals/sec (0 = all at once)")
     ap.add_argument("--max-steps", type=int, default=10_000)
@@ -31,14 +44,17 @@ def main(argv=None) -> None:
     import numpy as np
 
     from repro_torch.configs.base import get_config, reduced
-    from repro_torch.kernels.ops import MLSTM_CHUNK
+    from repro_torch.kernels.ops import FLASH_ATTENTION, MLSTM_CHUNK
     from repro_torch.serve import Engine, Request
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     engine = Engine(cfg, slots=args.slots, max_len=args.max_len,
-                    seed=args.seed, device=args.device)
+                    seed=args.seed, cache_mode=args.cache_mode,
+                    block_size=args.block_size,
+                    num_blocks=args.num_blocks or None, policy=args.policy,
+                    device=args.device)
     engine.load(engine.model.init(args.seed))
 
     rng = np.random.default_rng(args.seed)
@@ -66,7 +82,12 @@ def main(argv=None) -> None:
         p95 = ttfts[min(len(ttfts) - 1, int(0.95 * len(ttfts)))]
         print(f"[serve] {done_tokens / elapsed:.0f} tok/s, "
               f"p95 TTFT {p95 * 1e3:.1f} ms")
-    print(f"[serve] mlstm_chunk kernel launches: {MLSTM_CHUNK.launches}")
+    if engine.pool is not None:
+        print(f"[serve] pool high water {engine.pool.high_water}/"
+              f"{engine.pool.num_blocks} blocks "
+              f"({engine.pool.block_size} tokens each)")
+    print(f"[serve] kernel launches: flash_attention "
+          f"{FLASH_ATTENTION.launches}, mlstm_chunk {MLSTM_CHUNK.launches}")
     if results.truncated:
         raise SystemExit(
             f"[serve] TRUNCATED at --max-steps={args.max_steps}: "

@@ -1,4 +1,5 @@
-"""Shared layers: initialisers, RMSNorm and the output projection.
+"""Shared layers: initialisers, RMSNorm, RoPE, attention, SwiGLU and the
+output projection.
 
 Parameters are plain dicts of tensors with the reference's leaf names
 (``scale``, ``wq`` ...), so converted reference weights drop straight in.
@@ -8,6 +9,10 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import GLOBAL_WINDOW
+from repro_torch.kernels import ops
 
 DEFAULT_DTYPE = torch.bfloat16
 
@@ -33,6 +38,43 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """Apply RoPE.  x: (B, T, H, dh); positions: (B, T) int."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freq_exp = torch.arange(half, dtype=torch.float32, device=x.device) / half
+    inv_freq = torch.pow(theta, -freq_exp)                        # (half,)
+    ang = positions.float()[..., None] * inv_freq                  # (B,T,half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def attention(q, k, v, q_pos, k_pos, *, window: int = GLOBAL_WINDOW,
+              causal: bool = True, q_chunk: int = 0) -> torch.Tensor:
+    """Exact masked attention over explicit positions (-1 = empty slot).
+    The model's only attention: ``kernels.ops.attention`` sends a CUDA
+    tensor to the flash-attention kernel and a CPU tensor to the plain
+    version, which splits the queries into ``q_chunk`` chunks."""
+    return ops.attention(q, k, v, q_pos, k_pos, window=window,
+                         causal=causal, q_chunk=q_chunk)
+
+
+def swiglu_init(gen: torch.Generator, d: int, f: int, dtype=DEFAULT_DTYPE
+                ) -> dict:
+    return {"w1": dense_init(gen, (d, f), dtype),
+            "w3": dense_init(gen, (d, f), dtype),
+            "w2": dense_init(gen, (f, d), dtype)}
+
+
+def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ params["w1"]) * (x @ params["w3"])
+    return h @ params["w2"]
 
 
 def logits_for(h: torch.Tensor, unemb: torch.Tensor) -> torch.Tensor:

@@ -1,18 +1,28 @@
-"""Serving engine: continuous batching over recurrent-state slots.
+"""Serving engine: continuous batching over a KV cache or recurrent slots.
 
-The port of the reference engine's ``legacy`` cache mode, the one the
-reference picks for recurrent architectures: each admitted request is
-prefilled alone at batch 1 (chunks of ``prefill_chunk`` tokens, then single
-tokens for the remainder) and its state is copied into its slot; decode
-ticks then run one token for every slot at once.  Ticks are planned by
+The port of the reference engine (see its ``serve/README.md``).  Requests
+are admitted into free slots between ticks; each tick is one dispatch
+(``Model.serve_step`` then batched sampling) planned by
 :class:`~repro_torch.serve.scheduler.Scheduler`, and the loop dispatches
 tick t+1 before it reads tick t's sampled tokens back, so host bookkeeping
-overlaps the device.  Decode ticks read their input token from a
+overlaps the device.  Decode rows read their input token from a
 device-resident next-token buffer.
 
-The reference's ``paged`` and ``dense`` modes (batched prefill over a KV
-cache) are not ported: they serve attention architectures only.  Load and
-drain barriers are no-ops on one rank.
+Cache modes:
+
+* ``paged``: batched prefill in chunk ticks, with the full-length KV
+  entries in a pool of fixed-size blocks that slots lease on demand
+  (:class:`~repro_torch.serve.pool.BlockPool`); windowed entries stay
+  rings.  The default for attention-only architectures.
+* ``dense``: the same batched path over rings only (the equivalence
+  reference for ``paged``).
+* ``legacy``: each admitted request is prefilled alone at batch 1 (chunks
+  of ``prefill_chunk`` tokens, then single tokens) and copied into its
+  slot; decode ticks run every slot at once.  The only mode for recurrent
+  architectures, where padded rows in a shared dispatch would advance a
+  slot's state.
+
+Load and drain barriers are no-ops on one rank.
 """
 from __future__ import annotations
 
@@ -24,7 +34,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import cache as cache_lib
 from repro_torch.models.model import Model
+from repro_torch.serve.pool import BlockPool
 from repro_torch.serve.scheduler import (Scheduler, TickPlan,
                                          agree_admission_count)
 
@@ -54,25 +66,40 @@ class ServeResult(dict):
         self.metrics = dict(metrics)
 
 
+def _supports_batched(cfg: ArchConfig) -> bool:
+    """Archs whose padded rows are inert in a shared prefill dispatch."""
+    return not cfg.xlstm_pattern and cfg.family == "dense"
+
+
 class Engine:
     def __init__(self, cfg: ArchConfig, slots: int, max_len: int,
-                 seed: int = 0, cache_mode: str = "auto", device="cuda"):
+                 seed: int = 0, cache_mode: str = "auto",
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 policy: str = "conservative", device="cuda"):
         self.cfg = cfg
         self.model = Model(cfg, device)
         self.device = self.model.device
-        if cache_mode in ("paged", "dense"):
+        batched_ok = _supports_batched(cfg)
+        if cache_mode == "auto":
+            cache_mode = "paged" if batched_ok else "legacy"
+        if cache_mode in ("paged", "dense") and not batched_ok:
             raise ValueError(
                 f"cache_mode={cache_mode!r} needs the batched prefill "
                 f"path, unavailable for arch {cfg.name!r} (recurrent/"
                 f"MoE/enc-dec); use cache_mode='legacy'")
-        if cache_mode not in ("auto", "legacy"):
+        if cache_mode not in ("paged", "dense", "legacy"):
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
-        self.cache_mode = "legacy"
+        self.cache_mode = cache_mode
         self.slots = slots
         self.max_len = max_len
+        self.block_size = block_size
+        m_blocks = cache_lib.logical_blocks(max_len, block_size)
+        self.num_blocks = slots * m_blocks if num_blocks is None \
+            else num_blocks
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
-        self.sched = Scheduler(slots)
+        self.sched = Scheduler(slots, cfg.prefill_chunk, policy)
+        self.pool: Optional[BlockPool] = None
         self.params = None
         self.cache = None
         self.next_buf = None
@@ -87,7 +114,15 @@ class Engine:
     # ------------------------------------------------------------------ load
     def load(self, params) -> None:
         self.params = params
-        self.cache = self.model.init_cache(self.slots)
+        if self.cache_mode == "paged":
+            spec = cache_lib.PageSpec(self.block_size, self.num_blocks)
+            self.cache = self.model.init_cache(self.slots, self.max_len,
+                                               paged=spec)
+            self.pool = BlockPool(self.num_blocks, self.block_size,
+                                  self.slots, self.max_len)
+        else:
+            self.cache = self.model.init_cache(self.slots, self.max_len)
+            self.pool = None
         self.next_buf = torch.zeros((self.slots,), dtype=torch.long,
                                     device=self.device)
 
@@ -117,6 +152,34 @@ class Engine:
                 f"max_len {self.max_len} (need prompt + 1)")
         return min(req.max_new_tokens, self.max_len - p)
 
+    def _worst_blocks(self, req: Request) -> int:
+        """Pool blocks the request may lease: its prompt and its budget."""
+        return min(self.pool.blocks_for(len(req.prompt) + self._cap_for(req)),
+                   self.pool.max_blocks_per_slot)
+
+    def _admittable(self, reqs: List[Request]) -> int:
+        """How many of ``reqs`` (in order) can be admitted now: free slots,
+        and, in paged mode, pool blocks for each one's worst case."""
+        free = len(self.sched.free_slots())
+        n, extra = 0, 0
+        for req in reqs[:free]:
+            if self.pool is not None:
+                worst = self._worst_blocks(req)
+                if self.pool.committed + extra + worst > self.pool.num_blocks:
+                    break
+                extra += worst
+            n += 1
+        return n
+
+    def admit(self, req: Request, arrival_s: float = 0.0) -> bool:
+        """Admit one request into a free slot; False when full."""
+        if self.params is None:
+            raise RuntimeError(_LOAD_MSG)
+        if self._admittable([req]) < 1:
+            return False
+        self._admit_one(req, arrival_s)
+        return True
+
     def _admit_one(self, req: Request, arrival_s: float) -> None:
         slot = self.sched.free_slots()[0]
         cap = self._cap_for(req)
@@ -129,13 +192,16 @@ class Engine:
         st = self.sched.assign(slot, req.rid, np.asarray(req.prompt),
                                cap, req.temperature, req.eos_id)
         self.temps[slot] = req.temperature
-        self._legacy_prefill(slot, st)
+        if self.pool is not None:
+            self.pool.reserve(slot, st.prompt_len + cap)
+        if self.cache_mode == "legacy":
+            self._legacy_prefill(slot, st)
 
     def _legacy_prefill(self, slot: int, st) -> None:
         """Isolated batch=1 chunked prefill, copied into the slot."""
         prompt = st.prompt
         chunk = self.cfg.prefill_chunk
-        cache1 = self.model.init_cache(1)
+        cache1 = self.model.init_cache(1, self.max_len)
         pos, logits = 0, None
         while pos < len(prompt):
             n = chunk if len(prompt) - pos >= chunk else 1
@@ -145,7 +211,11 @@ class Engine:
             pos += n
         for name, ent in self.cache.items():
             for key, val in ent.items():
-                val[:, slot].copy_(cache1[name][key][:, 0])
+                one = cache1[name][key]
+                if key == "pos":              # batch first
+                    val[slot].copy_(one[0])
+                else:                         # layer first, then batch
+                    val[:, slot].copy_(one[:, 0])
         # the copy above replaced the whole slot: a reset still pending
         # from the slot's previous request must not wipe it
         self._reset_mask[slot] = False
@@ -161,8 +231,7 @@ class Engine:
         arrived = [r for (t, r) in queue if t <= now]
         if not arrived:
             return
-        n = agree_admission_count(min(len(arrived),
-                                      len(self.sched.free_slots())))
+        n = agree_admission_count(self._admittable(arrived))
         for req in arrived[:n]:
             idx = next(i for i, (_, r) in enumerate(queue) if r is req)
             arr, _ = queue.pop(idx)
@@ -172,14 +241,35 @@ class Engine:
     def _now(self) -> float:
         return time.perf_counter() - self._t0
 
-    def _dispatch(self, plan: TickPlan) -> torch.Tensor:
-        """One tick: reset released slots, serve_step, sample."""
+    def _pre_dispatch(self, plan: TickPlan) -> None:
+        """Reset released slots; in paged mode lease the blocks this tick
+        writes and upload the block table to every paged entry when it
+        changed."""
         if self._reset_mask.any():
             self.model.reset_cache_slots(
                 self.cache, self._tensor(self._reset_mask, torch.bool))
             self._reset_mask[:] = False
+        if self.pool is not None:
+            for i in range(self.slots):
+                if plan.lengths[i] > 0:
+                    self.pool.ensure(i, int(plan.starts[i])
+                                     + int(plan.lengths[i]))
+            if self.pool.dirty:
+                bt = self._tensor(self.pool.table, torch.int32)
+                for ent in self.cache.values():
+                    if "btab" in ent:
+                        ent["btab"].copy_(bt)
+                self.pool.dirty = False
+
+    def _dispatch(self, plan: TickPlan) -> torch.Tensor:
+        """One tick: serve_step over the plan's rows, then sampling.  Rows
+        with ``use_next`` take their first token from the next-token
+        buffer; idle rows (length 0) touch nothing."""
+        self._pre_dispatch(plan)
         lengths = self._tensor(plan.lengths, torch.int32)
-        tok = torch.where(lengths > 0, self.next_buf, 0)[:, None]
+        tok = self._tensor(plan.tokens)
+        use_next = self._tensor(plan.use_next, torch.bool)
+        tok[:, 0] = torch.where(use_next, self.next_buf, tok[:, 0])
         logits, self.cache = self.model.serve_step(
             self.params, tok, self._tensor(plan.starts, torch.int32),
             lengths, self.cache)
@@ -219,6 +309,8 @@ class Engine:
             self._finalize(st.rid, now)
 
     def _release(self, slot: int) -> None:
+        if self.pool is not None:
+            self.pool.release(slot)
         self._reset_mask[slot] = True
         self.temps[slot] = 0.0
         self.sched.release(slot)
@@ -231,6 +323,16 @@ class Engine:
         m["done_s"] = now
         m["tokens"] = len(req.out_tokens)
         self._arrival.pop(rid, None)
+
+    def step(self) -> Dict[int, int]:
+        """Plan, dispatch and finish one tick synchronously; returns
+        ``{rid: sampled token}`` for the rows that sampled this tick."""
+        if self.params is None:
+            raise RuntimeError(_LOAD_MSG)
+        plan = self.sched.plan()
+        if plan is None:
+            return {}
+        return self._finish(plan, self._dispatch(plan))
 
     # ------------------------------------------------------------ run loops
     def run_to_completion(self, reqs: List[Request],
@@ -247,6 +349,13 @@ class Engine:
             raise RuntimeError(_LOAD_MSG)
         if len(reqs) != len(arrivals_s):
             raise ValueError("one arrival time per request")
+        if self.pool is not None:
+            for r in reqs:   # reject never-admittable requests up front
+                worst = self._worst_blocks(r)
+                if worst > self.pool.num_blocks:
+                    raise ValueError(
+                        f"request {r.rid} needs {worst} blocks but the "
+                        f"pool holds {self.pool.num_blocks}")
         self._t0 = time.perf_counter()
         self._done, self._metrics = {}, {}
         queue = sorted(zip(arrivals_s, reqs), key=lambda p: p[0])

@@ -1,10 +1,20 @@
-"""Continuous-batching scheduler: decode-tick planning and admission.
+"""Continuous-batching scheduler: tick planning and admission.
 
 A copy of the reference scheduler's host-side bookkeeping (the port keeps
-its own), cut to what the legacy cache mode uses: the engine prefills each
-prompt at admission, so every tick is one decode token for each slot that
-still generates, and idle rows have ``lengths == 0``.  The reference's
-chunk ticks and their policies wait for the paged/dense modes (ROADMAP.md).
+its own).  A tick is one dispatch over the whole slot batch in which each
+row carries a prefill chunk, one decode token, or nothing (idle rows have
+``lengths == 0``).  Two tick policies:
+
+* ``conservative`` (default): prefill chunks and decode tokens never share
+  a dispatch.  Chunk ticks run at the fixed width ``chunk`` while decode
+  rows idle; decode ticks are width 1.  Every slot sees the computation
+  it would see alone in the batch, so greedy output is the same solo and
+  batched.
+* ``mixed``: decode rows join chunk ticks as single-token rows whose token
+  the engine takes from its device next-token buffer.
+
+In the engine's legacy mode a prompt is prefilled at admission (``fed`` is
+the prompt), so only decode ticks are planned.
 
 ``fed`` counts tokens written into the cache, ``sampled`` generated tokens
 whose sampling was dispatched, ``recorded`` generated tokens the host has
@@ -36,24 +46,36 @@ class SlotState:
         return int(self.prompt.shape[0])
 
     @property
+    def prefilling(self) -> bool:
+        return self.fed < self.prompt_len
+
+    @property
     def decode_ready(self) -> bool:
-        return (not self.done and self.fed >= self.prompt_len
+        return (not self.done and not self.prefilling
                 and self.sampled < self.cap)
 
 
 @dataclasses.dataclass
 class TickPlan:
-    """One decode dispatch over every slot; each sampling row reads its
-    input token from the engine's device next-token buffer."""
+    """One dispatch: (B, width) token rows + which rows sample."""
 
+    kind: str                       # "chunk" | "decode"
+    width: int
+    tokens: np.ndarray              # (B, width) int32 host tokens
+    use_next: np.ndarray            # (B,) bool: the row's first token comes
+                                    # from the device next-token buffer
     starts: np.ndarray              # (B,) int32
-    lengths: np.ndarray             # (B,) int32 (0 = idle row, else 1)
+    lengths: np.ndarray             # (B,) int32 (0 = idle row)
     samples: List[Tuple[int, int, int]]  # (slot, epoch, gen_index)
 
 
 class Scheduler:
-    def __init__(self, slots: int):
+    def __init__(self, slots: int, chunk: int, policy: str = "conservative"):
+        if policy not in ("conservative", "mixed"):
+            raise ValueError(f"unknown tick policy {policy!r}")
         self.n_slots = slots
+        self.chunk = max(int(chunk), 1)
+        self.policy = policy
         self.states: List[Optional[SlotState]] = [None] * slots
         self._epoch = 0
 
@@ -77,22 +99,43 @@ class Scheduler:
     def release(self, slot: int) -> None:
         self.states[slot] = None
 
+    def has_work(self) -> bool:
+        return any(s is not None and (s.prefilling or s.decode_ready)
+                   for s in self.states)
+
     def plan(self) -> Optional[TickPlan]:
-        """Plan the next decode tick, advancing ``fed``/``sampled`` as if
-        it were already dispatched (the engine dispatches it next)."""
+        """Plan the next tick, advancing ``fed``/``sampled`` as if it were
+        already dispatched (the engine dispatches it next)."""
+        B = self.n_slots
+        prefill = [(i, s) for i, s in self.active() if s.prefilling]
         decode = [(i, s) for i, s in self.active() if s.decode_ready]
-        if not decode:
+        if not prefill and not decode:
             return None
-        starts = np.zeros((self.n_slots,), np.int32)
-        lengths = np.zeros((self.n_slots,), np.int32)
+        C = self.chunk if prefill else 1
+        tokens = np.zeros((B, C), np.int32)
+        starts = np.zeros((B,), np.int32)
+        lengths = np.zeros((B,), np.int32)
+        use_next = np.zeros((B,), bool)
         samples: List[Tuple[int, int, int]] = []
-        for i, s in decode:
+        for i, s in prefill:
+            n = min(C, s.prompt_len - s.fed)
+            tokens[i, :n] = s.prompt[s.fed:s.fed + n]
             starts[i] = s.fed
-            lengths[i] = 1
-            samples.append((i, s.epoch, s.sampled))
-            s.fed += 1
-            s.sampled += 1
-        return TickPlan(starts, lengths, samples)
+            lengths[i] = n
+            s.fed += n
+            if not s.prefilling:            # this chunk samples token 0
+                samples.append((i, s.epoch, 0))
+                s.sampled = 1
+        if not prefill or self.policy == "mixed":
+            for i, s in decode:
+                starts[i] = s.fed
+                lengths[i] = 1
+                use_next[i] = True
+                samples.append((i, s.epoch, s.sampled))
+                s.fed += 1
+                s.sampled += 1
+        return TickPlan("chunk" if prefill else "decode", C, tokens,
+                        use_next, starts, lengths, samples)
 
 
 def agree_admission_count(n: int) -> int:

@@ -5,14 +5,19 @@ so they run where only the port is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerance: 1e-4 of the output's scale, max(1, max |plain|): both sides
-sum at most L*dh f32 products per element, in different orders.
+Tolerances.  mLSTM: 1e-4 of the output's scale, max(1, max |plain|): both
+sides sum at most L*dh f32 products per element, in different orders.
+Attention, absolute on the rows with q_pos >= 0 (the others are padding
+no caller reads): 3e-2 in bf16, the reference's kernel-test tolerance,
+since the plain version rounds the probabilities to bf16 and the kernel
+keeps them in f32; 1e-4 in f32, where only the order of the sums differs.
 """
 import pytest
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import KERNEL as FLASH
 from repro_torch.kernels.mlstm_chunk import KERNEL
 
 TOL = 1e-4
@@ -62,3 +67,86 @@ def test_mlstm_chunk_kernel_matches_plain(cuda, B, H, S, dh, chunk, state):
     assert _err(h, h_r) < TOL
     for got, want in zip(st_k, st_r):
         assert _err(got, want) < TOL
+
+
+def _ring_case(B, W, C, fill, dev):
+    """k_pos of a W-slot ring holding fill[b] tokens (wrapped past W, -1
+    where empty) followed by a chunk of C tokens, and the chunk's q_pos;
+    row 0's chunk ends in two padding tokens when C > 2, and a row whose
+    fill is None is idle (q_pos -1)."""
+    k_pos = torch.full((B, W + C), -1, dtype=torch.int32)
+    q_pos = torch.zeros((B, C), dtype=torch.int32)
+    for b in range(B):
+        n = fill[b] or 0
+        for p in range(max(0, n - W), n):
+            k_pos[b, p % W] = p
+        q_pos[b] = torch.arange(n, n + C)
+        k_pos[b, W:] = q_pos[b]
+        if fill[b] is None:
+            q_pos[b] = -1
+            k_pos[b, W:] = -1
+    if C > 2:
+        q_pos[0, -2:] = -1
+        k_pos[0, -2:] = -1
+    return q_pos.to(dev), k_pos.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,W,C,fill,window,Hq,Hkv,dh,dtype", [
+    (2, 64, 64, (0, 40), 64, 8, 4, 256, torch.bfloat16),      # empty slots
+    (2, 64, 96, (100, 300), 64, 8, 4, 256, torch.bfloat16),   # wrapped ring
+    (2, 128, 130, (70, 0), 1 << 30, 8, 4, 256, torch.bfloat16),  # global
+    (3, 64, 1, (0, 63, 500), 64, 8, 4, 256, torch.bfloat16),  # decode Tq=1
+    (3, 200, 1, (0, 7, 199), 1 << 30, 8, 4, 256, torch.bfloat16),
+    (3, 300, 1, (299, None, 40), 1 << 30, 8, 1, 128, torch.bfloat16),
+    (2, 40, 1, (90, 3), 16, 16, 1, 64, torch.float32),   # 16 heads per KV
+    (2, 24, 1, (30, None), 8, 4, 4, 16, torch.float32),
+    (2, 8, 8, (5, 21), 8, 4, 4, 16, torch.float32),           # reduced widths
+    (2, 32, 70, (9, 50), 16, 6, 3, 64, torch.float32),
+])
+def test_flash_attention_kernel_matches_plain(cuda, B, W, C, fill, window,
+                                              Hq, Hkv, dh, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(W + C + dh)
+    q = torch.randn((B, C, Hq, dh), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((B, W + C, Hkv, dh), generator=gen,
+                        device=cuda).to(dtype) for _ in range(2))
+    q_pos, k_pos = _ring_case(B, W, C, fill, cuda)
+    before = FLASH.launches
+    out = FLASH(q, k, v, q_pos, k_pos, window=window)
+    want = ref.attention_ref(q, k, v, q_pos, k_pos, window=window)
+    torch.cuda.synchronize()
+    assert FLASH.launches == before + 1
+    valid = q_pos >= 0
+    err = (out[valid].double() - want[valid].double()).abs().max().item()
+    assert err < (3e-2 if dtype == torch.bfloat16 else 1e-4)
+    assert (out[~valid] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["paged", "dense"])
+def test_serve_step_never_waits_for_the_card(cuda, mode):
+    """A decode dispatch of the reduced Gemma enqueues its work without a
+    host round trip (a synchronising call raises under the sync debug
+    mode), so the host can run ahead of the card."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.serve import Engine, Request
+    eng = Engine(reduced(get_config("gemma3-4b")), slots=3, max_len=32,
+                 block_size=8, cache_mode=mode, device=cuda)
+    eng.load(eng.model.init(seed=0))
+    for rid, n in enumerate((5, 9)):
+        assert eng.admit(Request(rid=rid, prompt=np.arange(n),
+                                 max_new_tokens=4))
+    eng.step()                                  # the chunk tick
+    tok = torch.ones((3, 1), dtype=torch.long, device=cuda)
+    starts = torch.tensor([5, 9, 0], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([1, 1, 0], dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = eng.model.serve_step(eng.params, tok, starts, lengths,
+                                         eng.cache)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(logits[:2]).all()

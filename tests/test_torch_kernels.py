@@ -24,16 +24,6 @@ from repro_torch.kernels.mlstm_chunk import KERNEL
 TOL = 1e-4
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tiny tensors: torch's thread pool costs more than it saves, and the
-    suite runs several workers side by side."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _err(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return np.max(np.abs(got - want)) / max(1.0, np.max(np.abs(want)))

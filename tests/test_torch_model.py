@@ -24,16 +24,6 @@ from repro_torch.convert import params_from_jax
 from repro_torch.models.model import Model
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tiny tensors: torch's thread pool costs more than it saves, and the
-    suite runs several workers side by side."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _err(got, want):
     got = np.asarray(got.float() if isinstance(got, torch.Tensor) else got,
                      np.float64)
@@ -94,17 +84,22 @@ def test_reset_cache_slots_matches_reference():
 
 
 def test_other_families_are_not_ported_yet():
-    cfg = reduced(get_config("xlstm-350m"), xlstm_pattern=(), family="dense")
+    cfg = reduced(get_config("xlstm-350m"), xlstm_pattern=(), family="hybrid")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(cfg, device="cpu")
 
 
+@pytest.mark.parametrize("arch", ["xlstm-350m", "gemma3-4b"])
 @pytest.mark.parametrize("cut", ["full", "reduced"])
-def test_config_fields_equal_the_reference(cut):
+def test_config_fields_equal_the_reference(cut, arch):
     """Every field the port's config keeps has the reference's value, at
-    the published widths and after ``reduced``."""
-    cfg, jcfg = get_config("xlstm-350m"), jax_get_config("xlstm-350m")
+    the published widths and after ``reduced``, and so do the per-layer
+    windows and RoPE thetas."""
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
     if cut == "reduced":
         cfg, jcfg = reduced(cfg), jax_reduced(jcfg)
     for f in dataclasses.fields(cfg):
         assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    assert (cfg.q_dim, cfg.kv_dim) == (jcfg.q_dim, jcfg.kv_dim)
+    assert cfg.layer_windows() == jcfg.layer_windows()
+    assert cfg.layer_thetas() == jcfg.layer_thetas()

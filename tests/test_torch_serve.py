@@ -31,16 +31,6 @@ CFG = reduced(get_config("xlstm-350m"))
 LENGTHS = (3, 5, 8, 13)     # 8 and 13 run the chunked prefill (chunk 8)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tiny tensors: torch's thread pool costs more than it saves, and the
-    suite runs several workers side by side."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _prompts(seed=2):
     rng = np.random.default_rng(seed)
     return [rng.integers(0, CFG.vocab_size, size=n) for n in LENGTHS]
@@ -122,7 +112,7 @@ def test_scheduler_plans_match_reference(admissions):
     the legacy engine, each admission is prefilled at once (``fed`` = the
     prompt, token 0 sampled), so every tick the reference plans is a
     decode tick, and its slots release when their cap is dispatched."""
-    scheds = [JaxScheduler(slots=3, chunk=4), Scheduler(slots=3)]
+    scheds = [JaxScheduler(slots=3, chunk=4), Scheduler(slots=3, chunk=4)]
     for tick in range(12):
         for slot, n, cap in admissions.get(tick, []):
             for s in scheds:
@@ -145,12 +135,16 @@ def test_scheduler_plans_match_reference(admissions):
                     s.release(i)
 
 
-def test_launcher_serves_on_cpu():
+@pytest.mark.parametrize("arch,mode", [("xlstm-350m", "legacy"),
+                                       ("gemma3-4b", "paged")])
+def test_launcher_serves_on_cpu(arch, mode):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "xlstm-350m", "--reduced", "--device", "cpu", "--slots", "2",
+         arch, "--reduced", "--device", "cpu", "--slots", "2",
          "--requests", "3", "--new-tokens", "3", "--max-len", "80",
          "--rate", "200"],
         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert "completed 3/3 requests, 9 tokens" in out.stdout
+    assert f"mode={mode} device=cpu completed 3/3 requests, 9 tokens" \
+        in out.stdout
+    assert "kernel launches: flash_attention 0, mlstm_chunk 0" in out.stdout

@@ -24,16 +24,6 @@ CFG = jax_reduced(jax_get_config("xlstm-350m"))
 H, DH = CFG.num_heads, CFG.head_dim
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tiny tensors: torch's thread pool costs more than it saves, and the
-    suite runs several workers side by side."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _err(got, want):
     got = np.asarray(got.float() if isinstance(got, torch.Tensor) else got,
                      np.float64)
