@@ -12,7 +12,9 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    from a zero and from a random state, a 4-slot decode step from a random
    state and from m = -inf, a one-token step at batch 1 (the
    token-by-token prefill of short prompts), and a 300-token call (one
-   chunk of L = S); time both versions with CUDA events and compute the
+   chunk of L = S); check that S = 1 took the one-step layout and every
+   longer call the chunk-parallel one; time both versions with CUDA
+   events, the kernel's device time with the profiler, and compute the
    card's bound for the work;
 3. serve xLSTM-350M at its published widths (random weights from a seed)
    through ``repro_torch.serve.Engine``: one 4104-token prompt and three
@@ -29,8 +31,10 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    chunk), each from an empty cache and from one partly filled with
    wrapped positions, and a (4, 1) decode tick over each entry kind; hold
    the bf16 kernel per element, and the f32 kernel on the inputs upcast,
-   tightly against the plain version in f32 at each of them; time the
-   kernel, the plain version and one call of PyTorch's
+   tightly against the plain version in f32 at each of them; check that
+   every bf16 chunk case took the tensor-core (wgmma) layout and every
+   decode case the decode layout; time the kernel (and its device time
+   with the profiler), the plain version and one call of PyTorch's
    ``scaled_dot_product_attention`` (the yardstick; the port never calls
    it) and compute the card's bound;
 7. serve Gemma-3-4B at its published widths (random bf16 weights from
@@ -134,6 +138,43 @@ def cuda_ms(torch, fn, iters: int, flush) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
+def _dev_us(e):
+    """Device time of a profiler event, in microseconds."""
+    return (getattr(e, "self_device_time_total", 0)
+            or getattr(e, "self_cuda_time_total", 0))
+
+
+def device_ms(torch, fn, iters: int = 20):
+    """The sum of the kernel durations of one call of ``fn``: torch.profiler's
+    device events over ``iters`` back-to-back calls (no flush between
+    them), divided by ``iters``; where the profiler shows no device time,
+    CUDA events around 100 back-to-back calls.  Returns (ms, source, ms by
+    kernel name; empty from events).  Unlike ``cuda_ms`` this leaves out
+    the wrapper's host work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {e.key[:60]: _dev_us(e) / 1e3 / iters
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _dev_us(e) > 0}
+    if by_name:
+        return sum(by_name.values()), "profiler", by_name
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(100):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / 100, "events", {}
+
+
 def mlstm_bound(B, H, S, dh, L):
     """Least time on the card: operations (causal halves of q k^T and w v,
     plus q C and k^T v, per chunk and head) at the fp32 rate, against bytes
@@ -184,8 +225,11 @@ def kernel_phase(torch, F, KERNEL, ref):
     for B, H, S, dh, chunk, state, iters in cases:
         xs, st = inputs(B, H, S, dh, state)
         h, st_k = KERNEL(*xs, st, chunk=chunk)
+        layout = KERNEL.last_layout
         h_r, st_r = ref.mlstm_chunk_ref(*xs, st, chunk=chunk)
         torch.cuda.synchronize()
+        check(layout == ("one_step" if S == 1 else "chunk_parallel"),
+              f"mlstm_chunk took the {layout} layout at {(B, H, S, dh)}")
         errs = [rel_err(a, b) for a, b in zip((h, *st_k), (h_r, *st_r))]
         abs_err = max((a - b).abs().max().item()
                       for a, b in zip((h, *st_k), (h_r, *st_r)))
@@ -197,12 +241,16 @@ def kernel_phase(torch, F, KERNEL, ref):
         L = ref.chunk_len(S, chunk)
         ms = cuda_ms(torch, lambda: KERNEL(*xs, st, chunk=chunk), iters,
                      flush)
+        dev_ms, dev_src, dev_by = device_ms(
+            torch, lambda: KERNEL(*xs, st, chunk=chunk))
         plain_ms = cuda_ms(
             torch, lambda: ref.mlstm_chunk_ref(*xs, st, chunk=chunk),
             iters, flush)
         bound_ms, bound_by, flops, nbytes = mlstm_bound(B, H, S, dh, L)
-        row = dict(shape=[B, H, S, dh], L=L, state=state,
+        row = dict(shape=[B, H, S, dh], L=L, state=state, layout=layout,
                    rel_err=max(errs), max_abs_err=abs_err, ms=ms,
+                   device_ms=dev_ms, device_ms_from=dev_src,
+                   device_ms_by_kernel=dev_by,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    flops=flops, bytes=nbytes)
         print("[kernel] mlstm_chunk " + json.dumps(row), flush=True)
@@ -228,6 +276,7 @@ def serve_phase(torch, np, KERNEL, get_config, Engine, Request):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches, by_shape = KERNEL.launches, dict(KERNEL.by_shape)
+    by_layout = dict(KERNEL.by_layout)
 
     check(not res.truncated and sorted(res) == list(range(len(lengths))),
           f"not every request completed: {sorted(res)}")
@@ -253,8 +302,13 @@ def serve_phase(torch, np, KERNEL, get_config, Engine, Request):
         new_tokens=TOKENS, completed=len(res), tokens=tokens,
         seconds=elapsed, tokens_per_s=tokens / elapsed, ttft_s=ttfts,
         p95_ttft_s=p95, s_per_token_after_first=gaps)), flush=True)
+    one_step = sum(n for (_, s), n in by_shape.items() if s == 1)
+    check(by_layout == {k: v for k, v in (("one_step", one_step),
+                                          ("chunk_parallel",
+                                           launches - one_step)) if v},
+          f"the serve's mlstm layouts {by_layout} do not follow S")
     print("[kernels] " + json.dumps(dict(
-        mlstm_chunk=launches,
+        mlstm_chunk=launches, by_layout=by_layout,
         by_batch_and_length={f"{b}x{s}": n
                              for (b, s), n in sorted(by_shape.items())})),
           flush=True)
@@ -396,9 +450,13 @@ def attention_phase(torch, F, FLASH, ref):
         k, v = (torch.randn((B, Tk, Hkv, dh), generator=gen, device=dev
                             ).to(torch.bfloat16) for _ in range(2))
         out = FLASH(q, k, v, q_pos, k_pos, window=window)
+        layout = FLASH.last_layout
         want = ref.attention_ref(q, k, v, q_pos, k_pos, window=window,
                                  q_chunk=512)
         torch.cuda.synchronize()
+        check(layout == ("decode" if Tq == 1 else "wgmma"),
+              f"attention took the {layout} layout at {(B, Tq, Tk)} {kind} "
+              f"{state}")
         valid = q_pos >= 0
         check(bool(torch.isfinite(out[valid]).all()),
               f"attention output not finite at {(B, Tq, Tk)} {kind} {state}")
@@ -424,6 +482,8 @@ def attention_phase(torch, F, FLASH, ref):
               f"{f32_err}")
         ms = cuda_ms(torch, lambda: FLASH(q, k, v, q_pos, k_pos,
                                           window=window), iters, flush)
+        dev_ms, dev_src, dev_by = device_ms(torch, lambda: FLASH(
+            q, k, v, q_pos, k_pos, window=window))
         plain_ms = cuda_ms(torch, lambda: ref.attention_ref(
             q, k, v, q_pos, k_pos, window=window, q_chunk=512), 3, flush)
         # the yardstick: one PyTorch call of the same function
@@ -437,9 +497,12 @@ def attention_phase(torch, F, FLASH, ref):
         bound_ms, bound_by, flops, nbytes, live = attn_bound(
             torch, q_pos, k_pos, window, Hq, Hkv, dh)
         row = dict(shape=[B, Tq, Tk], Hq=Hq, Hkv=Hkv, dh=dh, entry=kind,
-                   cache=state, window=window, max_abs_err=err,
-                   bf16_err_of_tol=tight_err, f32_rel_err=f32_err, ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms,
+                   cache=state, window=window, layout=layout,
+                   max_abs_err=err, bf16_err_of_tol=tight_err,
+                   f32_rel_err=f32_err, ms=ms, device_ms=dev_ms,
+                   device_ms_from=dev_src, device_ms_by_kernel=dev_by,
+                   plain_ms=plain_ms,
+                   library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                    bytes=nbytes, live_pairs=live)
         print("[kernel] flash_attention " + json.dumps(row), flush=True)
@@ -473,6 +536,7 @@ def gemma_serve_phase(torch, np, FLASH, get_config, Engine, Request,
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches, by_shape = FLASH.launches, dict(FLASH.by_shape)
+    by_layout = dict(FLASH.by_layout)
 
     check(not res.truncated and sorted(res) == list(range(len(reqs))),
           f"not every request completed: {sorted(res)}")
@@ -515,8 +579,12 @@ def gemma_serve_phase(torch, np, FLASH, get_config, Engine, Request,
         pool_high_water_blocks=engine.pool.high_water,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)),
         flush=True)
+    decode = sum(n for (_, tq, _), n in by_shape.items() if tq == 1)
+    check(by_layout == {k: v for k, v in (("decode", decode),
+                                          ("wgmma", launches - decode)) if v},
+          f"the serve's attention layouts {by_layout} do not follow Tq")
     print("[kernels] " + json.dumps(dict(
-        flash_attention=launches,
+        flash_attention=launches, by_layout=by_layout,
         ticks_by_width={str(tq): t["local"] for tq, t in ticks.items()},
         by_batch_tq_tk={f"{b}x{tq}x{tk}": n
                         for (b, tq, tk), n in sorted(by_shape.items())})),
@@ -532,10 +600,7 @@ def profile_ticks(torch, np, engine, Request):
     the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", 0)
-                or getattr(e, "self_cuda_time_total", 0))
+    dev_us = _dev_us
 
     rng = np.random.default_rng(5)
     for i in range(SLOTS):

@@ -71,6 +71,38 @@ def mlstm_chunk_ref(q, k, v, li, lf, state, chunk: int = 256):
     return torch.cat(hs, dim=2), state
 
 
+def mlstm_chunk_states(k, v, li, lf, state, chunk: int = 256):
+    """The states entering each chunk of ``mlstm_chunk_ref`` and the final
+    one: what the CUDA kernel's chunk-parallel layout computes in its first
+    phase, before each chunk's outputs are computed from its entering state
+    alone.  Nothing on the serving path calls it; the tests do.
+
+    k/v: (B, H, S, dh); li/lf: (B, H, S).  Returns ((C (B,H,nc,dh,dh),
+    n (B,H,nc,dh), m (B,H,nc)) entering chunks 0 .. nc-1, the final
+    (C, n, m)), nc = S / chunk_len(S, chunk)."""
+    S = k.shape[2]
+    L = chunk_len(S, chunk)
+    C, n, m = state
+    Cs, ns, ms = [], [], []
+    for c0 in range(0, S, L):
+        Cs.append(C)
+        ns.append(n)
+        ms.append(m)
+        kc, vc = k[:, :, c0:c0 + L], v[:, :, c0:c0 + L]
+        b = torch.cumsum(lf[:, :, c0:c0 + L], dim=-1)
+        bL = b[..., -1]
+        dec = bL[..., None] - b + li[:, :, c0:c0 + L]
+        m_out = torch.maximum(m + bL, dec.amax(dim=-1))
+        carry = torch.exp(m + bL - m_out)
+        kv = kc * torch.exp(dec - m_out[..., None])[..., None]
+        C = C * carry[..., None, None] + kv.transpose(-1, -2) @ vc
+        n = n * carry[..., None] + kv.sum(dim=-2)
+        m = m_out
+    entering = (torch.stack(Cs, dim=2), torch.stack(ns, dim=2),
+                torch.stack(ms, dim=2))
+    return entering, (C, n, m)
+
+
 def _attn_chunk(q, k, v, q_pos, k_pos, *, window: int, causal: bool,
                 scale: float):
     """Exact attention for one query chunk (the reference's

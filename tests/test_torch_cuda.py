@@ -11,6 +11,13 @@ Attention, absolute on the rows with q_pos >= 0 (the others are padding
 no caller reads): 3e-2 in bf16, the reference's kernel-test tolerance,
 since the plain version rounds the probabilities to bf16 and the kernel
 keeps them in f32; 1e-4 in f32, where only the order of the sums differs.
+The tensor-core layout is also held per element to the f32 plain version
+on the inputs upcast (2^-7 of |ref| + 5e-4: one bf16 rounding of the
+output, doubled, and the f32 sums), as ``chip_smoke.py`` holds it.
+
+The cases of the layouts' edges assert the layout each call took: mLSTM
+``one_step`` (S = 1) or ``chunk_parallel``; attention ``wgmma`` (bf16,
+dh 64/128/256, Tq > 1), ``decode`` or ``fma``.
 """
 import pytest
 import torch
@@ -47,6 +54,10 @@ def _err(got, want):
     (2, 3, 70, 48, 32, "random"),      # dh not a multiple of the tile
 ])
 def test_mlstm_chunk_kernel_matches_plain(cuda, B, H, S, dh, chunk, state):
+    _check_mlstm(cuda, B, H, S, dh, chunk, state)
+
+
+def _check_mlstm(cuda, B, H, S, dh, chunk, state):
     gen = torch.Generator(device=cuda).manual_seed(S + dh)
     q, k, v = (torch.randn((B, H, S, dh), generator=gen, device=cuda)
                for _ in range(3))
@@ -67,6 +78,24 @@ def test_mlstm_chunk_kernel_matches_plain(cuda, B, H, S, dh, chunk, state):
     assert _err(h, h_r) < TOL
     for got, want in zip(st_k, st_r):
         assert _err(got, want) < TOL
+    return KERNEL.last_layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,dh,chunk,state", [
+    (1, 2, 64, 64, 64, "random"),      # one chunk
+    (1, 2, 128, 64, 64, "random"),     # two chunks
+    (2, 2, 256, 32, 16, "m_inf"),      # 16 chunks from m = -inf
+    (1, 3, 100, 48, 32, "random"),     # S % chunk != 0: one chunk, dh 48
+    (2, 2, 48, 16, 16, "zero"),        # dh 16, three chunks
+    (1, 2, 192, 64, 96, "random"),     # chunks of 96 rows: 64 + 32
+    (1, 2, 40, 64, 1, "random"),       # chunks of one step
+    (3, 5, 1, 48, 256, "random"),      # S = 1 at B*H = 15, dh 48
+    (2, 2, 1, 16, 256, "m_inf"),       # S = 1 into a fresh slot, dh 16
+])
+def test_mlstm_chunk_layouts(cuda, B, H, S, dh, chunk, state):
+    layout = _check_mlstm(cuda, B, H, S, dh, chunk, state)
+    assert layout == ("one_step" if S == 1 else "chunk_parallel")
 
 
 def _ring_case(B, W, C, fill, dev):
@@ -120,6 +149,38 @@ def test_flash_attention_kernel_matches_plain(cuda, B, W, C, fill, window,
     err = (out[valid].double() - want[valid].double()).abs().max().item()
     assert err < (3e-2 if dtype == torch.bfloat16 else 1e-4)
     assert (out[~valid] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,W,C,fill,window,Hq,Hkv,dh", [
+    (2, 50, 70, (0, 30), 16, 4, 4, 64),        # Tq, Tk off 64; window < tile
+    (2, 100, 130, (120, 7), 64, 8, 4, 128),    # 2 heads per KV head, wrapped
+    (3, 64, 200, (0, None, 300), 1 << 30, 8, 1, 256),  # 8 per KV, idle row
+    (2, 16, 257, (5, 40), 1 << 30, 4, 2, 64),  # a last Q tile of one row
+    (2, 1024, 300, (2000, 600), 1024, 8, 4, 256),  # the served local form
+])
+def test_flash_attention_wgmma_layout(cuda, B, W, C, fill, window, Hq, Hkv,
+                                      dh):
+    gen = torch.Generator(device=cuda).manual_seed(W + C + dh)
+    q = torch.randn((B, C, Hq, dh), generator=gen, device=cuda
+                    ).to(torch.bfloat16)
+    k, v = (torch.randn((B, W + C, Hkv, dh), generator=gen,
+                        device=cuda).to(torch.bfloat16) for _ in range(2))
+    q_pos, k_pos = _ring_case(B, W, C, fill, cuda)
+    out = FLASH(q, k, v, q_pos, k_pos, window=window)
+    assert FLASH.last_layout == "wgmma"
+    want = ref.attention_ref(q, k, v, q_pos, k_pos, window=window)
+    want32 = ref.attention_ref(q.float(), k.float(), v.float(), q_pos, k_pos,
+                               window=window)
+    torch.cuda.synchronize()
+    valid = q_pos >= 0
+    got = out[valid].float()
+    assert (got - want[valid].float()).abs().max().item() < 3e-2
+    w32 = want32[valid]
+    assert ((got - w32).abs() / (2.0 ** -7 * w32.abs() + 5e-4)).max() <= 1.0
+    assert (out[~valid] == 0).all()
+    assert FLASH.layout(torch.float32, dh, C, Hq, Hkv) == "fma"
+    assert FLASH.layout(torch.bfloat16, dh, 1, Hq, Hkv) == "decode"
 
 
 @pytest.mark.cuda
